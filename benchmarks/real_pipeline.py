@@ -1,4 +1,4 @@
-"""E-step / EM benchmark on REAL pipeline output (VERDICT r1 item 8).
+"""E-step / EM benchmark on REAL pipeline output.
 
 The headline bench.py stream is synthetic (rows drawn to match real row
 statistics).  This benchmark instead drives the actual production path on
@@ -6,25 +6,17 @@ BASELINE.md-style configs and reports the same metrics, so the key-count
 and span-distribution assumptions of the synthetic stream are checked
 against data that went through the real filter stack:
 
-* C1: bundled `example.vcf.gz` -> vcf2smc -> full `estimate` (2 EM
-  iterations), wall-clock of the complete command.
+* C1: the seeded example VCF (data/simulate.py:write_example_vcf) ->
+  vcf2smc -> full `estimate` (2 EM iterations), wall-clock of the
+  complete command.
 * C2: sawtooth simulation (n=10, 10 x 10 Mb) -> the stage-2 filter
   pipeline (RecodeNonseg/Compress/BreakLongSpans/Thin/BinObservations/
   RecodeMonomorphic/Validate/DropUninformative) -> OnePopInferenceManager
   -> timed E-step (Gbp/s) + timed full EM iteration through the real
   optimizer.
 
-Run:  PYTHONPATH=/root/repo python benchmarks/real_pipeline.py
-Prints one JSON object with both configs.
-
-Measured on one TPU v5e chip (2026-08-17, f32 carry): C2 (0.1 Gbp through
-the real pipeline, 18 emission keys, window kernel selected) E-step
-0.144 s (0.69 Gbp/s — fixed dispatch overheads dominate at this small
-scale; the C3-scale 55 Gbp synthetic stream in bench.py reaches ~7 Gbp/s),
-full EM iteration 0.31 s, pipeline 0.6 s host-side.  C1 (bundled
-example.vcf.gz): vcf2smc 0.1 s, full 2-EM-iteration `estimate` 31.8 s
-wall including jit compiles.  The real-pipeline key count (18) and span
-mix confirm the synthetic stream's row-statistics assumptions.
+Run:  python benchmarks/real_pipeline.py
+Prints one JSON object with both configs.  On an H100: not measured yet.
 """
 
 import argparse
@@ -38,7 +30,7 @@ import numpy as np
 
 import jax
 
-import smcpp_tpu  # noqa: F401
+import smcpp_jax  # noqa: F401
 
 try:
     jax.config.update("jax_default_device", jax.devices("cpu")[0])
@@ -51,13 +43,15 @@ def _log(*a):
 
 
 def bench_c1(outdir):
-    "vcf2smc + estimate on the reference's bundled example (correctness-scale)."
-    from smcpp_tpu.commands.main import main as cli_main
+    "vcf2smc + estimate on the seeded example VCF (correctness-scale)."
+    from smcpp_jax.commands.main import main as cli_main
+    from smcpp_jax.data.simulate import write_example_vcf
 
+    vcf = write_example_vcf(os.path.join(outdir, "example.vcf.gz"))
     smc = os.path.join(outdir, "ex.smc.gz")
     t0 = time.time()
     cli_main([
-        "vcf2smc", "/root/reference/example/example.vcf.gz", smc, "1",
+        "vcf2smc", vcf, smc, "1",
         "pop1:" + ",".join(f"msp_{i}" for i in range(5)),
     ])
     t_vcf = time.time() - t0
@@ -79,13 +73,13 @@ def bench_c1(outdir):
 
 def bench_c2(outdir, w=100, M=16):
     "Sawtooth sim -> real filter pipeline -> manager -> timed E-step/EM."
-    from smcpp_tpu import util
-    from smcpp_tpu.data import filters as df
-    from smcpp_tpu.data.simulate import write_simulated
-    from smcpp_tpu.inference import estimation
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
-    from smcpp_tpu.models import PiecewiseModel, SMCModel
+    from smcpp_jax import util
+    from smcpp_jax.data import filters as df
+    from smcpp_jax.data.simulate import write_simulated
+    from smcpp_jax.inference import estimation
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.models import PiecewiseModel, SMCModel
 
     saw = util.sawtooth
     a, s = util.exp_piecewise_to_stepwise(saw["a"], saw["b"], saw["s"])

@@ -16,11 +16,11 @@ import tempfile
 
 import numpy as np
 
-import smcpp_tpu  # noqa: F401
-from smcpp_tpu import util
-from smcpp_tpu.data.simulate import write_simulated
-from smcpp_tpu.inference.analysis import Analysis
-from smcpp_tpu.models import PiecewiseModel, SMCModel
+import smcpp_jax  # noqa: F401
+from smcpp_jax import util
+from smcpp_jax.data.simulate import write_simulated
+from smcpp_jax.inference.analysis import Analysis
+from smcpp_jax.models import PiecewiseModel, SMCModel
 
 
 def main(outdir):

@@ -6,7 +6,7 @@ grows 1 -> 8 devices; ideal weak scaling keeps wall time flat, so measured
 throughput should grow linearly with the mesh.  On this image the mesh is 8
 virtual CPU devices (xla_force_host_platform_device_count) — the SPMD
 program, shardings, and XLA-inserted psum collectives are exactly the ones
-that run over ICI on a real multi-chip slice (BASELINE.md C5); only the
+that run over NVLink on a multi-GPU host (BASELINE.md C5); only the
 interconnect differs.
 
 Run:  PYTHONPATH=. python benchmarks/scaling.py
@@ -23,12 +23,12 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np  # noqa: E402
 
-import smcpp_tpu  # noqa: F401,E402
+import smcpp_jax  # noqa: F401,E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from smcpp_tpu.parallel import mesh as mesh_mod  # noqa: E402
+from smcpp_jax.parallel import mesh as mesh_mod  # noqa: E402
 
 
 def synth_contig(rng, n_keys, bases):
@@ -62,7 +62,7 @@ def main():
         ]
         total_bases = float(sum(d[:, 0].sum() for d in data))
         mesh = mesh_mod.make_mesh(devices[:nd])
-        from smcpp_tpu.ops import window_kernel as wk
+        from smcpp_jax.ops import window_kernel as wk
 
         keys, valid, soc = wk.pack_windows(data, key_id, seg_target=2048)
         keys, valid = mesh_mod.pad_segments(keys, valid, nd)

@@ -3,12 +3,12 @@
 // These are the inherently sequential row-walking loops of the data pipeline
 // (the reference implements them in Cython with nogil:
 // /root/reference/smcpp/_estimation_tools.pyx).  The semantics here match
-// smcpp_tpu/data/filters.py, which holds the reference documentation; the
+// smcpp_jax/data/filters.py, which holds the reference documentation; the
 // Python versions remain as a fallback and as the executable specification
 // (tests compare the two).
 //
 // Build: see csrc/Makefile (g++ -O3 -shared -fPIC).  Exposed via ctypes
-// (smcpp_tpu/_native.py) — plain C ABI, no pybind11 required.
+// (smcpp_jax/_native.py) — plain C ABI, no pybind11 required.
 
 #include <cstdint>
 #include <cstring>

@@ -17,7 +17,7 @@ import numpy as np
 
 def synth_problem():
     "Deterministic small problem; identical in every process and the driver."
-    from smcpp_tpu.ops import window_kernel as wk
+    from smcpp_jax.ops import window_kernel as wk
 
     rng = np.random.RandomState(2)
     nk = 9
@@ -43,7 +43,7 @@ def main():
     )
     import jax
 
-    from smcpp_tpu.parallel import distributed as dist, mesh as mesh_mod
+    from smcpp_jax.parallel import distributed as dist, mesh as mesh_mod
 
     dist.initialize(
         coordinator_address=f"127.0.0.1:{port}",

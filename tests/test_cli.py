@@ -1,5 +1,5 @@
 """CLI surface smoke test — the equivalent of the reference's
-test/run_test_long.sh: exercise every subcommand end-to-end on the bundled
+test/run_test_long.sh: exercise every subcommand end-to-end on the seeded
 example VCF."""
 
 import json
@@ -8,10 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.commands.main import main
-
-EXAMPLE = "/root/reference/example/example.vcf.gz"
-
+from smcpp_jax.commands.main import main
 
 @pytest.fixture(scope="module")
 def workdir(tmp_path_factory):
@@ -22,23 +19,23 @@ def workdir(tmp_path_factory):
 
 def test_version_and_cite(capsys):
     main(["version"])
-    assert "smcpp_tpu" in capsys.readouterr().out
+    assert "smcpp_jax" in capsys.readouterr().out
     main(["cite"])
     assert "Terhorst" in capsys.readouterr().out
 
 
-def test_vcf2smc(workdir):
+def test_vcf2smc(workdir, example_vcf):
     main([
-        "vcf2smc", EXAMPLE, str(workdir / "chr1.smc.gz"), "1",
+        "vcf2smc", example_vcf, str(workdir / "chr1.smc.gz"), "1",
         "pop1:msp_0,msp_1,msp_2,msp_3,msp_4",
     ])
     assert os.path.exists(workdir / "chr1.smc.gz")
 
 
-def test_vcf2smc_distinguished(workdir):
+def test_vcf2smc_distinguished(workdir, example_vcf):
     main([
         "vcf2smc", "-d", "msp_1", "msp_1",
-        EXAMPLE, str(workdir / "chr1.d.smc.gz"), "1",
+        example_vcf, str(workdir / "chr1.d.smc.gz"), "1",
         "pop1:msp_0,msp_1,msp_2,msp_3,msp_4",
     ])
     assert os.path.exists(workdir / "chr1.d.smc.gz")
@@ -105,7 +102,7 @@ def test_chunk(workdir):
 
 def test_simulate_hmm_engine(workdir):
     "simulate --engine hmm writes valid SMC++ data (no msprime needed)."
-    from smcpp_tpu.data.format import load_contig
+    from smcpp_jax.data.format import load_contig
 
     out = str(workdir / "sim.smc.gz")
     main([
@@ -118,7 +115,7 @@ def test_simulate_hmm_engine(workdir):
 
 def test_posterior_quantiles_math():
     "CDF inversion against hand-computed values on a tiny posterior."
-    from smcpp_tpu.commands.posterior import posterior_quantiles
+    from smcpp_jax.commands.posterior import posterior_quantiles
 
     hs = np.array([0.0, 1.0, 2.0, np.inf])
     # column 0: uniform over first two states; column 1: all mass in state 1

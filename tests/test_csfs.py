@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import scipy.integrate
 
-from smcpp_tpu.ops import csfs, exact, grid as gridmod, ratefunc
+from smcpp_jax.ops import csfs, exact, grid as gridmod, ratefunc
 
 
 def moran_dense(n, a, na):

@@ -6,13 +6,13 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.data.simulate import write_simulated
-from smcpp_tpu.models import SMCModel
+from smcpp_jax.data.simulate import write_simulated
+from smcpp_jax.models import SMCModel
 
 
 @pytest.mark.slow
 def test_cv_end_to_end(tmp_path):
-    from smcpp_tpu.commands.main import main
+    from smcpp_jax.commands.main import main
 
     true = SMCModel(np.array([0.05, 2.0]), 2e4, "piecewise", "pop1")
     true.y = np.log(np.array([1.5, 0.8]))

@@ -1,4 +1,4 @@
-"""End-to-end smoke test: vcf2smc on the bundled example VCF, then a short
+"""End-to-end smoke test: vcf2smc on the seeded example VCF, then a short
 one-population estimate; mirrors the reference's run_test_long.sh strategy."""
 
 import argparse
@@ -7,17 +7,14 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.data.format import load_contig
-from smcpp_tpu.data.vcf import SampleList, vcf2smc
-
-EXAMPLE = "/root/reference/example/example.vcf.gz"
-
+from smcpp_jax.data.format import load_contig
+from smcpp_jax.data.vcf import SampleList, vcf2smc
 
 @pytest.fixture(scope="module")
-def smc_file(tmp_path_factory):
+def smc_file(tmp_path_factory, example_vcf):
     out = tmp_path_factory.mktemp("data") / "example.smc.gz"
     vcf2smc(
-        EXAMPLE,
+        example_vcf,
         str(out),
         "1",
         SampleList("pop1", ["msp_0", "msp_1", "msp_2", "msp_3", "msp_4"]),
@@ -30,10 +27,19 @@ def test_vcf2smc_output(smc_file):
     assert c.pid == ("pop1",)
     assert list(c.n) == [8]
     assert list(c.a) == [2]
-    assert c.data[:, 0].sum() == 1_000_000
-    # spot-checked against the VCF records
-    assert c.data[0].tolist() == [1884, 0, 0, 8]
-    assert c.data[1].tolist() == [1, 0, 4, 8]
+    d = c.data
+    assert d[:, 0].sum() == 1_000_000
+    assert np.all(d[:, 0] >= 1)
+    # every row sees all 8 undistinguished haplotypes (no missing calls)
+    assert np.all(d[:, 3] == 8)
+    assert np.all((d[:, 1] >= 0) & (d[:, 1] <= 2))
+    assert np.all((d[:, 2] >= 0) & (d[:, 2] <= 8))
+    # segregating rows are single sites; the run-length code leaves no two
+    # adjacent non-segregating rows
+    seg = (d[:, 1] > 0) | (d[:, 2] > 0)
+    assert seg.sum() > 100
+    assert np.all(d[seg, 0] == 1)
+    assert not np.any(~seg[1:] & ~seg[:-1])
 
 
 def make_args(**kw):
@@ -49,7 +55,7 @@ def make_args(**kw):
 
 
 def test_estimate_end_to_end(smc_file, tmp_path):
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.inference.analysis import Analysis
 
     np.random.seed(0)
     outdir = str(tmp_path)
@@ -69,7 +75,7 @@ def test_estimate_end_to_end(smc_file, tmp_path):
     assert d["model"]["class"] == "SMCModel"
     sv = a.model.stepwise_values()
     assert np.all(sv > 0)
-    # the example was simulated at constant size; the fit should be within
+    # the example is simulated at constant size; the fit should be within
     # an order of magnitude of constant
     assert sv.max() / sv.min() < 50
 
@@ -78,17 +84,17 @@ def test_estimate_mesh_matches_single_device(smc_file, monkeypatch):
     """The production `estimate` path on the full 8-device mesh reproduces
     the single-device fit (VERDICT round 1 item 1: the mesh must be what
     `estimate` actually runs, tested through Analysis, not the kernel)."""
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.inference.analysis import Analysis
 
     args = make_args(em_iterations=1, knots=6)
 
-    monkeypatch.setenv("SMCPP_TPU_DEVICES", "1")
+    monkeypatch.setenv("SMCPP_JAX_DEVICES", "1")
     np.random.seed(3)
     a1 = Analysis([smc_file], args)
     a1.run()
     assert all(im._mesh is None for im in a1._ims.values())
 
-    monkeypatch.delenv("SMCPP_TPU_DEVICES")
+    monkeypatch.delenv("SMCPP_JAX_DEVICES")
     np.random.seed(3)
     a8 = Analysis([smc_file], args)
     a8.run()
@@ -105,9 +111,9 @@ def test_estimate_mesh_matches_single_device(smc_file, monkeypatch):
 
 def test_posterior_gamma(smc_file):
     "posterior decoding path: save_gamma produces normalized column masses."
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.models import SMCModel
-    from smcpp_tpu.inference import estimation
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.models import SMCModel
+    from smcpp_jax.inference import estimation
 
     c = load_contig(smc_file)
     m = SMCModel([0.01, 3.0], 20000.0, "piecewise")
@@ -129,9 +135,9 @@ def test_posterior_gamma(smc_file):
 
 def test_q_batch_matches_sequential(smc_file):
     "Vectorized Q_batch == per-candidate Q (the M-step's batched search)."
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.models import SMCModel
-    from smcpp_tpu.inference import estimation
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.models import SMCModel
+    from smcpp_jax.inference import estimation
 
     c = load_contig(smc_file)
     m = SMCModel([0.01, 3.0], 20000.0, "piecewise")
@@ -164,7 +170,7 @@ def test_q_batch_matches_sequential(smc_file):
 
 def test_estimate_cubic_spline(smc_file, tmp_path):
     "The cubic-spline model path end-to-end."
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.inference.analysis import Analysis
 
     np.random.seed(1)
     a = Analysis(
@@ -179,7 +185,7 @@ def test_estimate_cubic_spline(smc_file, tmp_path):
 
 def test_estimate_bspline(smc_file, tmp_path):
     "The bspline model path end-to-end (K+2 control points)."
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.inference.analysis import Analysis
 
     np.random.seed(2)
     a = Analysis(

@@ -10,10 +10,10 @@ dtype-following constants in ops/)."""
 import numpy as np
 import jax.numpy as jnp
 
-from smcpp_tpu.inference.manager import OnePopInferenceManager
-from smcpp_tpu.inference import estimation
-from smcpp_tpu.models import SMCModel
-from smcpp_tpu.ops import grid as grid_mod
+from smcpp_jax.inference.manager import OnePopInferenceManager
+from smcpp_jax.inference import estimation
+from smcpp_jax.models import SMCModel
+from smcpp_jax.ops import grid as grid_mod
 
 
 def _make_im(n=30, M=12):
@@ -88,11 +88,11 @@ def test_fast_routing_gates():
     # CPU E-step device -> fast path off
     assert not im._use_fast_mstep()
     import os
-    os.environ["SMCPP_TPU_FAST_MSTEP"] = "0"
+    os.environ["SMCPP_JAX_FAST_MSTEP"] = "0"
     try:
         assert not im._use_fast_mstep()
     finally:
-        del os.environ["SMCPP_TPU_FAST_MSTEP"]
+        del os.environ["SMCPP_JAX_FAST_MSTEP"]
 
 
 def test_batched_argmax_coarse_never_decides():
@@ -100,7 +100,7 @@ def test_batched_argmax_coarse_never_decides():
     objective but must make every decision (best value, refinement,
     termination) from exact evaluations: a +10-biased coarse round must
     not leak into the returned optimum."""
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     opt = SMCPPOptimizer.__new__(SMCPPOptimizer)
     calls = {"coarse": 0, "exact": 0}
@@ -124,7 +124,7 @@ def test_batched_argmax_coarse_never_decides():
 
 def test_batched_argmax_exact_when_no_coarse_consumer():
     "Callers that ignore the coarse flag (pure-f64 paths) still converge."
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     opt = SMCPPOptimizer.__new__(SMCPPOptimizer)
 
@@ -141,7 +141,7 @@ def test_batched_argmax_prefetched_bracket():
     replaces the round-0 dispatch: no coarse evaluation is issued, the
     optimum is found, and the returned value still comes from exact
     evaluations only."""
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     opt = SMCPPOptimizer.__new__(SMCPPOptimizer)
     calls = {"coarse": 0, "exact": 0}
@@ -163,7 +163,7 @@ def test_batched_argmax_prefetched_bracket():
 
 def test_batched_argmax_prefetch_edge_rejected():
     "An edge-argmax prefetched bracket is rejected: fresh coarse round runs."
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     opt = SMCPPOptimizer.__new__(SMCPPOptimizer)
     calls = {"coarse": 0}
@@ -185,7 +185,7 @@ def test_prefetch_coarse_grids_match_scalar_windows():
     """_prefetch_coarse builds, per coordinate with a trust radius, exactly
     the grid the scalar search would evaluate in its round 0, in ONE
     batched Q call."""
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     class M:
         K = 3

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from smcpp_tpu.contig import Contig
-from smcpp_tpu.data import filters as df
+from smcpp_jax.contig import Contig
+from smcpp_jax.data import filters as df
 
 
 def test_compress_merges_repeats():
@@ -41,29 +41,29 @@ def _rand_contig(rng, rows=200, n=6):
 
 def _py_thin(data, thinning):
     "Force the NumPy fallback."
-    import smcpp_tpu.data.filters as f
+    import smcpp_jax.data.filters as f
     import sys
 
-    native = sys.modules.pop("smcpp_tpu._native", None)
+    native = sys.modules.pop("smcpp_jax._native", None)
     saved = None
     try:
-        import smcpp_tpu
+        import smcpp_jax
 
-        saved = getattr(smcpp_tpu, "_native", None)
+        saved = getattr(smcpp_jax, "_native", None)
         if saved is not None:
-            delattr(smcpp_tpu, "_native")
-        sys.modules["smcpp_tpu._native"] = None  # force ImportError
+            delattr(smcpp_jax, "_native")
+        sys.modules["smcpp_jax._native"] = None  # force ImportError
         try:
             return f.thin_data(data, thinning)
         finally:
-            del sys.modules["smcpp_tpu._native"]
+            del sys.modules["smcpp_jax._native"]
     finally:
         if native is not None:
-            sys.modules["smcpp_tpu._native"] = native
+            sys.modules["smcpp_jax._native"] = native
         if saved is not None:
-            import smcpp_tpu
+            import smcpp_jax
 
-            smcpp_tpu._native = saved
+            smcpp_jax._native = saved
 
 
 def test_thin_preserves_total_span():
@@ -77,8 +77,8 @@ def test_thin_preserves_total_span():
 
 
 def test_native_matches_python():
-    pytest.importorskip("smcpp_tpu._native")
-    from smcpp_tpu import _native
+    pytest.importorskip("smcpp_jax._native")
+    from smcpp_jax import _native
 
     rng = np.random.RandomState(2)
     for _ in range(5):
@@ -91,30 +91,30 @@ def test_native_matches_python():
         w = int(rng.randint(50, 300))
         a2 = _native.bin_observations(c.data.copy(), np.asarray(c.a, np.int64), w)
         # Python fallback (bin_observations mutates a copy internally)
-        import smcpp_tpu.data.filters as f
+        import smcpp_jax.data.filters as f
 
         c2 = Contig(pid=c.pid, data=c.data.copy(), n=c.n, a=c.a)
         # temporarily hide native
-        import smcpp_tpu
+        import smcpp_jax
 
-        native = smcpp_tpu._native if hasattr(smcpp_tpu, "_native") else None
+        native = smcpp_jax._native if hasattr(smcpp_jax, "_native") else None
         import sys
 
-        sys.modules["smcpp_tpu._native"] = None
+        sys.modules["smcpp_jax._native"] = None
         try:
             b2 = f.bin_observations(c2, w)
         finally:
-            del sys.modules["smcpp_tpu._native"]
+            del sys.modules["smcpp_jax._native"]
         np.testing.assert_equal(a2, b2)
 
         a3 = _native.windowed_mutation_counts(
             np.ascontiguousarray(c.data[::-1]), w
         )
-        sys.modules["smcpp_tpu._native"] = None
+        sys.modules["smcpp_jax._native"] = None
         try:
             b3 = f.windowed_mutation_counts(c, w)
         finally:
-            del sys.modules["smcpp_tpu._native"]
+            del sys.modules["smcpp_jax._native"]
         np.testing.assert_equal(a3, b3)
 
 

@@ -11,7 +11,7 @@ not just self-consistency.
 import jax.numpy as jnp
 import numpy as np
 
-from smcpp_tpu.ops import csfs, emission, grid as gridmod, hmm, ratefunc, transition
+from smcpp_jax.ops import csfs, emission, grid as gridmod, hmm, ratefunc, transition
 
 
 def fixed_problem():

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from smcpp_tpu.ops import hmm
+from smcpp_jax.ops import hmm
 
 
 def brute_force(pi, T, E, spans, keys):
@@ -130,7 +130,7 @@ def test_posterior_gammas(problem):
 
 
 def test_float32_accuracy(problem):
-    "The f32 TPU path agrees with f64 to ~1e-4 relative."
+    "The f32 accelerator path agrees with f64 to ~1e-4 relative."
     pi, T, E, spans, keys = problem
     nbits = int(spans.max()).bit_length()
     ll64 = float(

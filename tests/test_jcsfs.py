@@ -5,7 +5,7 @@ recover the corresponding one-population (C)SFS."""
 import numpy as np
 import pytest
 
-from smcpp_tpu.ops import jcsfs as jmod
+from smcpp_jax.ops import jcsfs as jmod
 
 MODEL1 = (np.array([1.0, 4.0]), np.array([0.5, 1.0]))  # (a, s)
 MODEL2 = (np.array([2.0, 4.0, 2.0]), np.array([0.1, 0.2, 0.3]))

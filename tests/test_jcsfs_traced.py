@@ -14,9 +14,9 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.inference import estimation
-from smcpp_tpu.inference.manager import TwoPopInferenceManager
-from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+from smcpp_jax.inference import estimation
+from smcpp_jax.inference.manager import TwoPopInferenceManager
+from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
 N1, N2 = 4, 3
 
@@ -59,8 +59,8 @@ def _manager(a1, a2, M, split):
 @pytest.mark.parametrize("split", [0.005, 0.25, 2.0])
 def test_traced_joint_csfs_matches_eager(a1, a2, split):
     "Raw J tensors: identical marginal inputs -> ~fp-exact agreement."
-    from smcpp_tpu.ops.jcsfs import JointCSFS
-    from smcpp_tpu.ops.jcsfs_traced import TracedJointCSFS
+    from smcpp_jax.ops.jcsfs import JointCSFS
+    from smcpp_jax.ops.jcsfs_traced import TracedJointCSFS
 
     m1, m2 = _models()
     a1v = np.asarray(m1.stepwise_values())
@@ -88,11 +88,11 @@ def test_traced_joint_csfs_matches_eager(a1, a2, split):
 def test_traced_tensors_match_eager(a1, a2, split, M):
     "Manager tensors(): traced == eager incl. the pop-2 splice semantics."
     im = _manager(a1, a2, M, split)
-    os.environ["SMCPP_TPU_TRACED_JCSFS"] = "0"
+    os.environ["SMCPP_JAX_TRACED_JCSFS"] = "0"
     try:
         pi_e, T_e, E_e = [np.asarray(x) for x in im.tensors()]
     finally:
-        os.environ.pop("SMCPP_TPU_TRACED_JCSFS", None)
+        os.environ.pop("SMCPP_JAX_TRACED_JCSFS", None)
     assert im._traced_tensors_ok()
     pi_t, T_t, E_t = [np.asarray(x) for x in im.tensors()]
 
@@ -108,12 +108,12 @@ def test_traced_tensors_match_eager(a1, a2, split, M):
 @pytest.mark.parametrize("a1,a2", [(2, 0), (1, 1)])
 def test_traced_estep_loglik_matches_eager(a1, a2):
     im = _manager(a1, a2, 6, 0.25)
-    os.environ["SMCPP_TPU_TRACED_JCSFS"] = "0"
+    os.environ["SMCPP_JAX_TRACED_JCSFS"] = "0"
     try:
         ll_e = im.E_step()
         stats_e = [np.asarray(s) for s in im._stats]
     finally:
-        os.environ.pop("SMCPP_TPU_TRACED_JCSFS", None)
+        os.environ.pop("SMCPP_JAX_TRACED_JCSFS", None)
     ll_t = im.E_step()
     stats_t = [np.asarray(s) for s in im._stats]
     assert np.isclose(ll_t, ll_e, rtol=1e-8)
@@ -135,11 +135,11 @@ def test_traced_cache_no_retrace_on_split_or_y():
 
 
 def test_traced_env_revert():
-    "SMCPP_TPU_TRACED_JCSFS=0 reverts to the eager path."
+    "SMCPP_JAX_TRACED_JCSFS=0 reverts to the eager path."
     im = _manager(2, 0, 6, 0.25)
-    os.environ["SMCPP_TPU_TRACED_JCSFS"] = "0"
+    os.environ["SMCPP_JAX_TRACED_JCSFS"] = "0"
     try:
         assert not im._traced_tensors_ok()
     finally:
-        os.environ.pop("SMCPP_TPU_TRACED_JCSFS", None)
+        os.environ.pop("SMCPP_JAX_TRACED_JCSFS", None)
     assert im._traced_tensors_ok()

@@ -9,7 +9,7 @@ from tests.test_parallel import _make_im, _synth_contigs
 
 
 def test_estep_nan_aborts_with_dump(tmp_path, monkeypatch):
-    monkeypatch.setenv("SMCPP_TPU_DEBUG_DUMP", str(tmp_path))
+    monkeypatch.setenv("SMCPP_JAX_DEBUG_DUMP", str(tmp_path))
     rng = np.random.RandomState(21)
     n = 4
     im = _make_im(_synth_contigs(rng, n, 2, 1, 12), n)
@@ -22,7 +22,7 @@ def test_estep_nan_aborts_with_dump(tmp_path, monkeypatch):
     im._estep_fn = nanfn
     with pytest.raises(RuntimeError, match="non-finite E-step output"):
         im.E_step()
-    dumps = list(tmp_path.glob("smcpp_tpu_nan_dump_*.npz"))
+    dumps = list(tmp_path.glob("smcpp_jax_nan_dump_*.npz"))
     assert len(dumps) == 1
     z = np.load(dumps[0])
     assert set(z.files) >= {"pi", "T", "E", "loglik", "gamma0"}
@@ -30,7 +30,7 @@ def test_estep_nan_aborts_with_dump(tmp_path, monkeypatch):
 
 
 def test_estep_finite_passes(tmp_path, monkeypatch):
-    monkeypatch.setenv("SMCPP_TPU_DEBUG_DUMP", str(tmp_path))
+    monkeypatch.setenv("SMCPP_JAX_DEBUG_DUMP", str(tmp_path))
     rng = np.random.RandomState(22)
     n = 4
     im = _make_im(_synth_contigs(rng, n, 2, 1, 12), n)

@@ -9,7 +9,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
 
 class FakeAnalysis:
@@ -412,7 +412,7 @@ def test_unified_combined_falls_back_to_best_single():
 
 
 def test_unified_env_off(monkeypatch):
-    monkeypatch.setenv("SMCPP_TPU_UNIFIED_MSTEP", "0")
+    monkeypatch.setenv("SMCPP_JAX_UNIFIED_MSTEP", "0")
     o = make_opt(FakeAnalysis(K=2))
     assert not o._unified_mstep()
 
@@ -439,7 +439,7 @@ def test_ftol_switches_unified_to_sequential_before_terminating():
     progress) and only terminate once sequential stalls too — the 1 Gbp
     fit regression (round 5) was the unified pass tripping ftol on
     iteration one."""
-    from smcpp_tpu.inference.optimizer import EMTerminationException
+    from smcpp_jax.inference.optimizer import EMTerminationException
 
     o = make_opt(FakeAnalysis(K=2))
     o._unified_used = True

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from smcpp_tpu.ops import hmm
-from smcpp_tpu.parallel import mesh as mesh_mod
+from smcpp_jax.ops import hmm
+from smcpp_jax.parallel import mesh as mesh_mod
 
 
 def test_sharded_estep_matches_single_device():
@@ -73,8 +73,8 @@ def _synth_contigs(rng, n, n_contigs, span_lo, span_hi):
 
 
 def _make_im(data, n, devices=None):
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.models import SMCModel
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.models import SMCModel
 
     hs = np.r_[0.0, np.logspace(-1.2, 0.6, 7), np.inf]
     im = OnePopInferenceManager(n, data, hs, ("p",), 0.5, devices=devices)
@@ -119,7 +119,7 @@ def test_manager_mesh_matches_single_device(span_range):
 
 def test_sharded_window_estep():
     "Window-kernel data parallelism via shard_map matches single device."
-    from smcpp_tpu.ops import window_kernel as wk
+    from smcpp_jax.ops import window_kernel as wk
 
     rng = np.random.RandomState(2)
     nk = 9
@@ -162,7 +162,7 @@ def test_sharded_window_estep():
 def test_sharded_direct_estep():
     """Direct (AD-free) Baum-Welch sharded E-step matches the single-device
     AD kernel, including with all-invalid padding segments."""
-    from smcpp_tpu.ops import window_kernel as wk
+    from smcpp_jax.ops import window_kernel as wk
 
     rng = np.random.RandomState(3)
     nk = 9
@@ -202,7 +202,7 @@ def test_sharded_direct_estep():
 
 def test_sharded_direct_estep_no_stream():
     "Sharded direct E-step with the emission-stream fallback disabled."
-    from smcpp_tpu.ops import window_kernel as wk
+    from smcpp_jax.ops import window_kernel as wk
 
     rng = np.random.RandomState(5)
     nk, M = 6, 4

@@ -4,17 +4,15 @@ On the CPU backend every precision setting computes exact f32/f64 matmuls,
 so these tests pin the *plumbing*: the precision parameter threads through
 both kernels and the sharded paths without changing results, the manager's
 escalation ladder rebuilds working kernels, and the optimizer's fallback
-redoes the E-step when the likelihood decreases.  The accuracy ladder
-itself ('default' ~2.6e-4 relative LL -> 'tensorfloat32' ~1.2e-5 ->
-'highest' exact f32) is TPU-measured (ops/window_kernel.py header;
-benchmarks/precision_validation.py).
+redoes the E-step when the likelihood decreases.  The accuracy of each
+rung on a GPU is measured by chip_smoke.py's parity phase.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from smcpp_tpu.ops import window_kernel as wk
+from smcpp_jax.ops import window_kernel as wk
 from tests.test_parallel import _make_im, _synth_contigs
 
 
@@ -89,7 +87,7 @@ class _FallbackStub:
 
 
 def test_optimizer_precision_fallback():
-    from smcpp_tpu.inference.optimizer import SMCPPOptimizer
+    from smcpp_jax.inference.optimizer import SMCPPOptimizer
 
     a = _FallbackStub()
     opt = SMCPPOptimizer.__new__(SMCPPOptimizer)

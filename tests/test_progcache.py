@@ -13,13 +13,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from smcpp_tpu.inference import progcache as pc
+from smcpp_jax.inference import progcache as pc
 
 
 @pytest.fixture()
 def cache_dir(tmp_path, monkeypatch):
     d = tmp_path / "expcache"
-    monkeypatch.setenv("SMCPP_TPU_EXPORT_CACHE", str(d))
+    monkeypatch.setenv("SMCPP_JAX_EXPORT_CACHE", str(d))
     return d
 
 
@@ -77,16 +77,42 @@ def test_transformed_builds(cache_dir):
 
 
 def test_disabled_env_falls_back(tmp_path, monkeypatch):
-    monkeypatch.setenv("SMCPP_TPU_EXPORT_CACHE", "0")
+    monkeypatch.setenv("SMCPP_JAX_EXPORT_CACHE", "0")
     f = pc.exported_jit("t4", "fp", lambda: (lambda x: x + 1))
     assert float(f(np.float64(1.0))) == 2.0
 
 
+def test_no_serializer_turns_cache_off(cache_dir, monkeypatch):
+    """Without flatbuffers (jax.export's serializer) nothing is exported
+    or written: every signature is a counted plain-jit fallback."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_flatbuffers(name, *a, **k):
+        if name == "flatbuffers":
+            raise ImportError(name)
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_flatbuffers)
+    pc._can_serialize.cache_clear()
+    try:
+        before = dict(pc.STATS)
+        f = pc.exported_jit("t5", "fp", lambda: (lambda x: x * 3))
+        assert float(f(np.float64(2.0))) == 6.0
+        assert pc.STATS["fallback"] == before["fallback"] + 1
+        assert pc.STATS["store"] == before["store"]
+        assert not cache_dir.exists()
+    finally:
+        monkeypatch.undo()
+        pc._can_serialize.cache_clear()
+
+
 def test_manager_setup_uses_cache(cache_dir):
     "A one-pop manager's Q programs land in (and reload from) the cache."
-    from smcpp_tpu.inference import estimation
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.models import SMCModel
+    from smcpp_jax.inference import estimation
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.models import SMCModel
 
     rng = np.random.RandomState(5)
     data = np.zeros((100, 4), np.int32)

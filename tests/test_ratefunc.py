@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import scipy.integrate
 
-from smcpp_tpu.ops import grid as gridmod
-from smcpp_tpu.ops import ratefunc
+from smcpp_jax.ops import grid as gridmod
+from smcpp_jax.ops import ratefunc
 
 
 def nC2(v):

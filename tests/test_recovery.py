@@ -11,8 +11,8 @@ import argparse
 import numpy as np
 import pytest
 
-from smcpp_tpu.data.simulate import write_simulated
-from smcpp_tpu.models import SMCModel
+from smcpp_jax.data.simulate import write_simulated
+from smcpp_jax.models import SMCModel
 
 
 def make_args(**kw):
@@ -29,7 +29,7 @@ def make_args(**kw):
 
 @pytest.mark.slow
 def test_bottleneck_recovery(tmp_path):
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.inference.analysis import Analysis
 
     # true history: recent size 2.0, ancient size 0.5 (in 2N0 units),
     # switching at t = 0.3 coalescent units

@@ -31,7 +31,7 @@ pytestmark = pytest.mark.skipif(
 
 def test_old_schema_model_loads():
     "Old (2017) model JSONs: pid/N0/class/knots/s/spline_class/y, no alpha."
-    from smcpp_tpu.models import model_from_dict
+    from smcpp_jax.models import model_from_dict
 
     j = json.load(open(MODEL))
     assert "alpha" not in j  # the schema quirk under test
@@ -44,7 +44,7 @@ def test_old_schema_model_loads():
 @pytest.fixture(scope="module")
 def decoded(tmp_path_factory):
     "Full posterior CLI on the real chr11 artifact (test.sh line 2)."
-    from smcpp_tpu.commands.posterior import Posterior
+    from smcpp_jax.commands.posterior import Posterior
 
     out = str(tmp_path_factory.mktemp("post") / "out.npz")
     p = argparse.ArgumentParser()

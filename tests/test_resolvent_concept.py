@@ -19,7 +19,7 @@ facts the fix rests on:
 
 import numpy as np
 
-from smcpp_tpu.ops import exact
+from smcpp_jax.ops import exact
 
 
 def test_exact_basis_explodes_stable_basis_does_not():

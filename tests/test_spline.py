@@ -2,8 +2,8 @@ import jax
 import numpy as np
 import pytest
 
-from smcpp_tpu.models import spline as sp
-from smcpp_tpu.models.model import SMCModel, model_from_dict
+from smcpp_jax.models import spline as sp
+from smcpp_jax.models.model import SMCModel, model_from_dict
 
 
 KNOTS = np.array([0.1, 0.3, 0.9, 2.7, 8.1])

@@ -1,7 +1,7 @@
 """Two-population end-to-end: vcf2smc (joint) -> marginal estimates -> split.
 
-The example VCF's samples all come from one msprime population, so the
-correct split estimate is (near) zero — the same sanity check the reference's
+The split tests draw both "populations" from the example VCF's first
+population, so the correct split estimate is (near) zero — the same sanity check the reference's
 run_test_long.sh split invocation exercises.
 """
 
@@ -12,10 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.data.vcf import SampleList, vcf2smc
-
-EXAMPLE = "/root/reference/example/example.vcf.gz"
-
+from smcpp_jax.data.vcf import SampleList, vcf2smc
 
 def make_args(**kw):
     d = dict(
@@ -30,22 +27,22 @@ def make_args(**kw):
 
 
 @pytest.fixture(scope="module")
-def twopop_data(tmp_path_factory):
+def twopop_data(tmp_path_factory, example_vcf):
     base = tmp_path_factory.mktemp("twopop")
     p1 = SampleList("pop1", ["msp_0", "msp_1", "msp_2"])
     p2 = SampleList("pop2", ["msp_3", "msp_4"])
     f1 = str(base / "p1.smc.gz")
     f2 = str(base / "p2.smc.gz")
     f12 = str(base / "p12.smc.gz")
-    vcf2smc(EXAMPLE, f1, "1", p1)
-    vcf2smc(EXAMPLE, f2, "1", p2)
-    vcf2smc(EXAMPLE, f12, "1", p1, p2)
+    vcf2smc(example_vcf, f1, "1", p1)
+    vcf2smc(example_vcf, f2, "1", p2)
+    vcf2smc(example_vcf, f12, "1", p1, p2)
     return base, f1, f2, f12
 
 
 def test_split_end_to_end(twopop_data):
-    from smcpp_tpu.inference.analysis import Analysis
-    from smcpp_tpu.inference.split import SplitAnalysis
+    from smcpp_jax.inference.analysis import Analysis
+    from smcpp_jax.inference.split import SplitAnalysis
 
     base, f1, f2, f12 = twopop_data
     np.random.seed(0)
@@ -76,8 +73,8 @@ def test_twopop_posterior(twopop_data, tmp_path):
     "Two-population posterior decoding through the CLI."
     import numpy as np
 
-    from smcpp_tpu.commands.main import main
-    from smcpp_tpu.inference.analysis import Analysis
+    from smcpp_jax.commands.main import main
+    from smcpp_jax.inference.analysis import Analysis
 
     base, f1, f2, f12 = twopop_data
     fit = base / "p1" / "model.final.json"
@@ -92,7 +89,7 @@ def test_twopop_posterior(twopop_data, tmp_path):
     # model json via split-style dict
     import json as _json
 
-    from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+    from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
     d = _json.load(open(fit))
     m1 = SMCModel.from_dict(d["model"])

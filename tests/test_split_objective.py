@@ -16,8 +16,8 @@ import numpy as np
 import jax
 import pytest
 
-from smcpp_tpu.ops import jcsfs as jmod
-from smcpp_tpu.ops.split_objective import (
+from smcpp_jax.ops import jcsfs as jmod
+from smcpp_jax.ops.split_objective import (
     MarginalSplitObjective,
     SplitObjective,
     _StaticEta,
@@ -68,8 +68,8 @@ def test_traced_j_matches_eager(a1, a2, n1, n2):
 
 
 def _make_joint_setup(split=0.4):
-    from smcpp_tpu.inference.manager import TwoPopInferenceManager
-    from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+    from smcpp_jax.inference.manager import TwoPopInferenceManager
+    from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
     rng = np.random.RandomState(5)
     n1 = n2 = 3
@@ -128,8 +128,8 @@ def test_split_grad_matches_fd():
 
 
 def _make_marginal_setup(split=0.4):
-    from smcpp_tpu.inference.manager import OnePopInferenceManager
-    from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+    from smcpp_jax.inference.manager import OnePopInferenceManager
+    from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
     rng = np.random.RandomState(7)
     n = 4

@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from smcpp_tpu.data.simulate import write_simulated_joint
-from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+from smcpp_jax.data.simulate import write_simulated_joint
+from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
 
 @pytest.mark.slow
 def test_split_recovery(tmp_path):
-    from smcpp_tpu.inference.split import SplitAnalysis
+    from smcpp_jax.inference.split import SplitAnalysis
 
     knots = np.array([0.05, 0.2, 0.8, 3.0])
     m1 = SMCModel(knots, 2e4, "piecewise", "pop1")

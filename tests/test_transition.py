@@ -10,8 +10,8 @@ import jax
 import numpy as np
 import scipy.linalg
 
-from smcpp_tpu import defaults
-from smcpp_tpu.ops import grid as gridmod, ratefunc, transition
+from smcpp_jax import defaults
+from smcpp_jax.ops import grid as gridmod, ratefunc, transition
 
 A_RHO = np.array([[-1.0, 1, 0], [0, 0, 0], [0, 0, 0]])
 A_ETA = np.array([[0.0, 0, 0], [1, -2, 1], [0, 0, 0]])

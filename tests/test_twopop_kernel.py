@@ -7,9 +7,9 @@ src/inference_manager.cpp:525-550)."""
 import numpy as np
 import pytest
 
-from smcpp_tpu.inference import estimation
-from smcpp_tpu.inference.manager import TwoPopInferenceManager
-from smcpp_tpu.models import SMCModel, SMCTwoPopulationModel
+from smcpp_jax.inference import estimation
+from smcpp_jax.inference.manager import TwoPopInferenceManager
+from smcpp_jax.models import SMCModel, SMCTwoPopulationModel
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def _make_im(data, jm, hs, force_span=False, dtype=None):
         assert im._use_windows  # the cost model picked windows first
         im._use_windows = False
         if im._mesh is not None:
-            from smcpp_tpu.parallel import mesh as mesh_mod
+            from smcpp_jax.parallel import mesh as mesh_mod
 
             im._spans_sh, im._keys_sh = mesh_mod.shard_batch(
                 im._mesh, np.asarray(im._spans), np.asarray(im._keys)
@@ -88,7 +88,7 @@ def test_twopop_window_kernel_selected_and_matches_span(twopop_setup):
 def test_twopop_posterior_decode_matches_span_oracle(twopop_setup):
     import jax.numpy as jnp
 
-    from smcpp_tpu.ops import hmm
+    from smcpp_jax.ops import hmm
 
     data, jm, hs = twopop_setup
     im = _make_im(data, jm, hs)

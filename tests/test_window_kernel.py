@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from smcpp_tpu.ops import hmm, window_kernel as wk
+from smcpp_jax.ops import hmm, window_kernel as wk
 
 
 def make_problem(seed=0, C=3, rows=40):
@@ -318,7 +318,7 @@ def test_estep_direct_alpha_remat_matches():
 
 def test_sharded_direct_estep_alpha_remat():
     "Remat flag through the segment-sharded mesh path == single device."
-    from smcpp_tpu.parallel import mesh as mesh_mod
+    from smcpp_jax.parallel import mesh as mesh_mod
 
     pi, T, E, data = make_problem(seed=10, C=4, rows=30)
     key_id = {(k,): k for k in range(E.shape[0])}
